@@ -1,6 +1,6 @@
 """Residual/factor library for the visual-inertial solver.
 
-TPU-native analog of the reference factor library (modules/Backend/
+Analog of the reference factor library (modules/Backend/
 G2oTypes.{h,cpp}): the same manifold conventions and residual definitions,
 but expressed as pure functions over batched state arrays; Jacobians come
 from `jax.jacfwd` composed with the retraction, so they are exact on the

@@ -1,6 +1,6 @@
 """Trajectory evaluation: association + Horn/Umeyama alignment + ATE RMSE.
 
-TPU-native analog of the reference's offline evaluator
+Analog of the reference's offline evaluator
 (evaluation/compare.py:6-211): timestamp association, closed-form Sim(3)
 alignment (with the monocular scale correction), scale error, and ATE RMSE.
 Pure numpy — this is offline tooling, not a hot path.

@@ -1,6 +1,6 @@
 """Host-side map store: keyframes, map points, observations, covisibility.
 
-TPU-native analog of the reference map data model (modules/BasicObject/
+Analog of the reference map data model (modules/BasicObject/
 Map.h:21-73, KeyFrame.h:26-171, MapPoint.h:18-117). Design translation, not
 port: the reference is a pointer graph (KeyFrame*/MapPoint* with ~15
 mutexes); here the map is a struct-of-arrays store with fixed capacities and

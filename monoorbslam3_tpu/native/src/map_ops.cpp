@@ -1,6 +1,6 @@
 // Native host-side map bookkeeping kernels.
 //
-// TPU-native framework runtime component: the reference implements its map
+// Host runtime component: the reference implements its map
 // bookkeeping in C++ behind mutexes (modules/BasicObject/KeyFrame.cpp:225-291
 // covisibility, LocalMapping.cpp:318-372 keyframe-redundancy scan). Here the
 // device-side math is JAX; these host-side graph scans are the hottest

@@ -1,6 +1,6 @@
 """Vectorized FAST-16/9 corner detection with grid-bucketed selection.
 
-TPU-native analog of the reference's per-cell FAST + quadtree distribution
+Analog of the reference's per-cell FAST + quadtree distribution
 (ORBExtractor.cpp:572-638, DistributeOctree 640-830). Instead of scalar
 pixel loops and a recursive quadtree, the whole level is scored at once:
 

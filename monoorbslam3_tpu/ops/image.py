@@ -1,6 +1,6 @@
 """Image-space ops: Gaussian blur + pyramid construction.
 
-TPU-native analog of the reference's OpenCV image path
+Analog of the reference's OpenCV image path
 (ORBExtractor.cpp:559-570 builds the 8-level scale-1.2 pyramid with
 cv::resize; descriptors are computed on a 7x7 sigma=2 GaussianBlur of each
 level, ORBExtractor.cpp:495-547). Here both are XLA convs/resizes with

@@ -1,30 +1,29 @@
 """ORB keypoint orientation + rBRIEF descriptors + the full extractor.
 
-TPU-native analog of the reference ORBExtractor (modules/ORB/
+Batched analog of the reference ORBExtractor (modules/ORB/
 ORBExtractor.cpp): IC-angle orientation (.cpp:18-48) and 256-pair rotated
 BRIEF (.cpp:495-547), re-architected as batched patch gathers + fused
 vector math instead of per-keypoint scalar loops.
 
-TPU-first structure (why this file does NOT mirror the reference's
-per-level loop): the per-keypoint stages are batched ACROSS pyramid levels
-— all levels' keypoints gather their patches from one packed pyramid
-atlas in a single Pallas DMA kernel, then one blur / one IC-angle / one
-BRIEF pass run at the full keypoint capacity. At these sizes every XLA op
-costs ~0.1-2 ms in dispatch+layout latency regardless of FLOPs, so 8x
-fewer, 8x larger ops dominate everything else. Measured on v5e (752x480,
-1024 features): per-level pipeline 13.4 ms -> this layout ~4 ms.
+Structure (why this file does NOT mirror the reference's per-level loop):
+the per-keypoint stages are batched ACROSS pyramid levels — all levels'
+keypoints gather their patches from one packed pyramid atlas in a single
+gather, then one blur / one IC-angle / one BRIEF pass run at the full
+keypoint capacity. Fewer, larger ops keep the frame a short chain of
+fused kernels instead of one chain per level (frame time on the H100:
+not measured).
 
-Further TPU translations of the reference's per-pixel work:
+Further translations of the reference's per-pixel work:
 - whole-level Gaussian blur (ORBExtractor.cpp:495) is replaced by blurring
   only the gathered 48x48 patches, expressed as two banded [48, 48]
-  matmuls (G @ P @ G^T) — MXU-shaped, vs a lane-starved single-channel
-  conv (the BRIEF sample extent + kernel radius never reaches the patch
-  border, so patch-local blur equals whole-image blur at every sample).
+  matmuls (G @ P @ G^T) instead of a single-channel conv (the BRIEF
+  sample extent + kernel radius never reaches the patch border, so
+  patch-local blur equals whole-image blur at every sample).
 - rotated-BRIEF sampling is a per-keypoint one-hot row/col contraction
   (select rows by matmul, columns by multiply-reduce) instead of a
-  [K, 2304] take_along_axis gather: 0.65 ms vs 6.4 ms measured. The
-  patch operand rides the MXU in bf16 — for 0..255 images this is the
-  same +-0.5 quantization as the reference's uint8 blurred samples.
+  [K, 2304] take_along_axis gather. The patch operand enters the matmul
+  in bf16 — for 0..255 images this is the same +-0.5 quantization as the
+  reference's uint8 blurred samples.
 
 Deliberate design difference: the reference hardcodes OpenCV's learned
 `bit_pattern_31_` (ORBExtractor.cpp:50-365). We instead generate a
@@ -47,7 +46,6 @@ import numpy as np
 
 from . import fast as fast_ops
 from . import image as image_ops
-from . import pallas_kernels
 
 PATCH = 48  # gathered patch size (square)
 HALF = PATCH // 2
@@ -90,7 +88,7 @@ def _ic_angle_weights():
 @lru_cache(maxsize=None)
 def _blur_matrix(ksize: int = 7, sigma: float = 2.0):
     """Banded [PATCH, PATCH] Gaussian so blur(P) = G @ P @ G^T (two batched
-    MXU matmuls instead of a single-channel conv)."""
+    matmuls instead of a single-channel conv)."""
     k = np.asarray(image_ops._gaussian_kernel(ksize, sigma))
     r = ksize // 2
     G = np.zeros((PATCH, PATCH), np.float32)
@@ -115,6 +113,20 @@ def gather_patches(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
         return jax.lax.dynamic_slice(padded, (cy, cx), (PATCH, PATCH))
 
     return jax.vmap(one)(y, x)
+
+
+def gather_patches_dyn(img: jnp.ndarray, ys: jnp.ndarray,
+                       xs: jnp.ndarray) -> jnp.ndarray:
+    """[Ha, Wa] f32, top-left corners (ys, xs) int32 -> [K, 48, 48] patches.
+
+    A vmapped dynamic_slice, which XLA lowers to one gather fusion. Callers
+    keep every window inside the image (the extractor's atlas padding
+    does); dynamic_slice would otherwise clamp the corner."""
+
+    def one(cy, cx):
+        return jax.lax.dynamic_slice(img, (cy, cx), (PATCH, PATCH))
+
+    return jax.vmap(one)(ys, xs)
 
 
 def ic_angles(patches_raw: jnp.ndarray) -> jnp.ndarray:
@@ -145,10 +157,10 @@ def brief_descriptors(patches_blur: jnp.ndarray, angles: jnp.ndarray) -> jnp.nda
     angles: [K] -> [K, 8] uint32 (256 bits packed little-endian per word).
 
     Sampling is a per-keypoint one-hot contraction: rows by a [512, PATCH]
-    one-hot matmul (MXU; the bf16 patch operand is the same +-0.5
-    quantization as the reference's uint8 samples), columns by a one-hot
-    multiply-reduce (VPU) — an order of magnitude faster on TPU than a
-    [K, PATCH*PATCH] take_along_axis gather.
+    one-hot matmul (the bf16 patch operand is the same +-0.5 quantization
+    as the reference's uint8 samples), columns by a one-hot
+    multiply-reduce — in place of a [K, PATCH*PATCH] take_along_axis
+    gather.
     """
     K = patches_blur.shape[0]
     pa, pb = brief_pattern()
@@ -223,8 +235,10 @@ class OrbExtractor:
         self.scale_factors = np.array([scale**l for l in range(n_levels)], np.float32)
         self.sigma2 = self.scale_factors**2  # per-level measurement variance scale
         # pyramid-atlas layout: levels stacked vertically, each padded to a
-        # 128-aligned width with a 256-lane DMA-slack margin; 64 slack rows
-        # at the bottom for the [56, 256] superblock fetch
+        # 128-aligned width plus 256 columns, with 64 extra rows at the
+        # bottom. The FAST margin keeps every patch window inside its level,
+        # so the gather itself needs none of this slack; it is kept so the
+        # compiled shapes and edge clamping stay as they were
         shapes = image_ops.pyramid_shapes(height, width, n_levels, scale)
         self._shapes = shapes
         self._row_off = np.cumsum([0] + [h for h, _ in shapes[:-1]]).astype(np.int32)
@@ -274,7 +288,7 @@ class OrbExtractor:
         )
         ys_all = jnp.concatenate(ys_at)
         xs_all = jnp.concatenate(xs)
-        patches_raw = pallas_kernels.gather_patches_dyn(atlas, ys_all, xs_all)
+        patches_raw = gather_patches_dyn(atlas, ys_all, xs_all)
 
         ang = ic_angles(patches_raw)
         desc = brief_descriptors(blur_patches(patches_raw), ang)

@@ -1,6 +1,6 @@
 """Batched two-view reconstruction: H/F RANSAC, decomposition, cheirality.
 
-TPU-native analog of the reference TwoViewReconstruction
+Analog of the reference TwoViewReconstruction
 (modules/Frontend/TwoViewReconstruction.cpp). Design translation, not port:
 
 - the reference computes Homography and Fundamental RANSAC in two forked
@@ -24,6 +24,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+from ..utils.precision import f32_matmuls
 
 CHI2_H = 5.991
 CHI2_F = 3.841
@@ -145,9 +147,9 @@ def triangulate_dlt(P1, P2, xy1, xy2):
     # equations in closed form (Cramer). The reference's homogeneous SVD
     # null vector (.cpp:700-703) differs only in the algebraic-error
     # normalization, which matters only for points near infinity — and
-    # those are rejected by the cheirality/parallax gates anyway. The
-    # batched [N,4,4] SVD was 6.8 ms on TPU (iterative, latency-bound);
-    # this is a handful of fused elementwise ops (~0.1 ms).
+    # those are rejected by the cheirality/parallax gates anyway. A
+    # batched [N,4,4] SVD is an iterative, latency-bound kernel; this is a
+    # handful of fused elementwise ops.
     A1 = A[..., :3]
     a4 = A[..., 3]
     M = jnp.einsum("...ri,...rj->...ij", A1, A1)
@@ -315,6 +317,7 @@ def check_rt(R, t, xy1, xy2, valid, K, sigma2=1.0, th_chi2=4.0):
 
 
 @partial(jax.jit, static_argnames=("n_iters",))
+@f32_matmuls
 def reconstruct_two_views(
     xy1: jnp.ndarray,  # [N, 2] undistorted pixel coords, frame 1
     xy2: jnp.ndarray,  # [N, 2] matched coords, frame 2

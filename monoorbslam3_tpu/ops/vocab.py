@@ -1,6 +1,6 @@
-"""Bag-of-binary-words vocabulary: dense TPU-friendly tree descent.
+"""Bag-of-binary-words vocabulary: dense batched tree descent.
 
-TPU-native analog of the vendored DBoW2 (thirdParty/DBoW2/
+Analog of the vendored DBoW2 (thirdParty/DBoW2/
 TemplatedVocabulary.h): a hierarchical k-means tree over 256-bit ORB
 descriptors. The reference walks a pointer tree per descriptor
 (TemplatedVocabulary.h:1066-1117); here the tree is flattened into dense

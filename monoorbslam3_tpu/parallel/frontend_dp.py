@@ -2,8 +2,8 @@
 
 The reference runs one frame at a time on the tracking thread
 (Tracking.cpp:93 constructs a Frame per image); its only frontend
-"scaling" is real-time pacing. On TPU the frontend is a fixed-shape XLA
-program, so scaling frames/s across chips is plain data parallelism:
+"scaling" is real-time pacing. Here the frontend is a fixed-shape XLA
+program, so scaling frames/s across cards is plain data parallelism:
 shard a batch of images over the mesh's `dp` axis with `shard_map` and
 let each device run the full single-frame pipeline (pyramid -> FAST ->
 select -> patch gather -> BRIEF) on its local shard. No collectives are

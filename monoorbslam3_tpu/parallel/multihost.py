@@ -2,16 +2,17 @@
 
 The reference is a single-process shared-memory system (SURVEY.md §2.3:
 mutexes only, "distributed anything: absent"); its scale ceiling is one
-machine. The TPU-native scale-out story splits traffic in two:
+machine. The scale-out story splits traffic in two:
 
-- ICI: intra-pod collectives inside the sharded solvers
+- device links: collectives inside the sharded solvers
   (parallel/sharded_ba.py psums the reduced camera system; frontend_dp
   shards bulk extraction). These are mesh-axis collectives — they work
   identically whether the mesh spans one host or many.
 - DCN: host-level control plane. `jax.distributed.initialize` brings up
   the cross-process runtime so `jax.devices()` is the GLOBAL device list
-  and a `Mesh` can span hosts; XLA then routes collectives over ICI
-  within a host/pod and DCN across, with no code change in the solvers.
+  and a `Mesh` can span hosts; XLA then routes collectives over the
+  cards' links within a host and the network across hosts, with no code
+  change in the solvers.
 
 Usage (one call per process, before any jax computation):
 
@@ -21,10 +22,9 @@ Usage (one call per process, before any jax computation):
     mesh = multihost.global_mesh(("dp",))
     system = System(..., mesh=mesh)   # window BAs now solve across hosts
 
-On a real TPU pod slice, `initialize()` with no arguments reads the
-standard TPU environment (jax auto-detects coordinator/rank); the
-explicit-argument form is for CPU/GPU clusters and the multi-process CPU
-test (tests/test_multihost.py, which spawns two localhost processes).
+Pass the coordinator, process count and rank explicitly: a GPU or CPU
+cluster has no environment JAX can read them from (tests/test_multihost.py
+spawns two localhost processes this way).
 """
 
 from __future__ import annotations
@@ -61,8 +61,7 @@ def global_mesh(axis_names=("dp",), shape=None):
     `shape`: optional axis sizes (defaults to all devices on the first
     axis). With multiple axes, devices are laid out host-major so the
     FASTEST-varying axis stays within a host — collectives along it ride
-    ICI, while only the slowest axis crosses DCN (the scaling-book
-    layout rule)."""
+    the cards' links, while only the slowest axis crosses the network."""
     import jax
     from jax.sharding import Mesh
 

@@ -1,9 +1,9 @@
 """Distributed Schur-complement bundle adjustment over a device mesh.
 
-TPU-native replacement for the reference's single-machine shared-memory
+Replacement for the reference's single-machine shared-memory
 concurrency (SURVEY.md §2.3): the mutex-guarded map becomes explicitly
 sharded state, and the local/full BA's landmark reduction is distributed
-with `shard_map` + `psum` over ICI (BASELINE.json north star).
+with `shard_map` + `psum` across devices (BASELINE.json north star).
 
 Sharding layout (one mesh axis, "dp"):
 - landmarks and their observations are partitioned BY POINT across devices
@@ -12,7 +12,7 @@ Sharding layout (one mesh axis, "dp"):
   inverses, and the dense W/Y tensors are fully local;
 - the reduced camera system S = Hcc - sum_p Y_p W_p^T and its RHS are
   formed by `psum` over the mesh — one [K,K,15,15] + [K,15] all-reduce
-  per iteration riding ICI;
+  per iteration;
 - the small dense solve (<= K*15 dims) is replicated on every device;
 - landmark back-substitution is again fully local per shard.
 
@@ -34,7 +34,7 @@ from ..utils.precision import f32_matmuls
 from ..backend.solver import (
     BAProblem, CHI2_MONO, _gather_kf, _inertial_linearize,
     _prior_linearize, _scatter_edge_blocks, _vis_linearize, _vis_residuals,
-    _walk_linearize, inv3x3,
+    _walk_linearize, inv3x3, visual_block_sums,
 )
 
 
@@ -113,17 +113,9 @@ def sharded_schur_ba(problem: BAProblem, camera, R_cb, t_cb, mesh: Mesh,
         shard_id = jax.lax.axis_index(axis)
         pb0 = pb_local._replace(obs_pt=pb_local.obs_pt - shard_id * per_pt)
         Pl = pb0.points.shape[0]
-        Ol = pb0.obs_kf.shape[0]
         on0 = (shard_id == 0).astype(jnp.float32)
         dof = pb0.kf_dof.reshape(-1)
         diag_idx = jnp.arange(K)
-
-        # one-hot incidences (local shard); scatter-add serializes on TPU,
-        # one-hot matmuls ride the MXU (exact at Precision.HIGH — one-hot
-        # entries are bf16-exact, see solver.schur_ba)
-        Ek = (pb0.obs_kf[:, None] == jnp.arange(K)[None, :]).astype(jnp.float32)
-        Ep = (pb0.obs_pt[:, None] == jnp.arange(Pl)[None, :]).astype(jnp.float32)
-        _mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGH)
 
         def total_cost_partial(kf, pts, valid_override=None):
             """Per-shard cost partial: local visual part + camera-only
@@ -145,29 +137,18 @@ def sharded_schur_ba(problem: BAProblem, camera, R_cb, t_cb, mesh: Mesh,
             r_v, Jc, Jl, w_v, chi2_v, c_vis = _vis_linearize(
                 pb, camera, R_cb, t_cb, huber_delta2)
 
-            # fused assembly (mirrors solver.schur_ba): one augmented-
-            # Jacobian block product, one stacked one-hot matmul
+            # assembly (mirrors solver.schur_ba): one augmented-Jacobian
+            # block product, then the local segment sums
             Ja = jnp.concatenate([Jc, Jl, -r_v[:, :, None]], -1)  # [O, 2, 10]
             B = jnp.einsum("oik,oil->okl", Ja * w_v[:, None, None], Ja)
-            W_o = B[:, :6, 6:9]  # [O, 6, 3]
-            cols = jnp.concatenate([
-                B[:, :6, :6].reshape(Ol, 36),
-                B[:, :6, 9:10].reshape(Ol, 6),
-                B[:, 6:9, 6:9].reshape(Ol, 9),
-                B[:, 6:9, 9:10].reshape(Ol, 3),
-                (Ek[:, :, None] * W_o.reshape(Ol, 1, 18)).reshape(Ol, K * 18),
-            ], -1)
-            SUM = _mm(jnp.concatenate([Ek, Ep], 1).T, cols)
-
-            camk = SUM[:K, :42]
+            camk, ptk, W_p = visual_block_sums(B, pb.obs_kf, pb.obs_pt, K, Pl)
             Hcc = jnp.zeros((K, K, 15, 15), jnp.float32)
             Hcc = Hcc.at[diag_idx, diag_idx, :6, :6].add(
                 camk[:, :36].reshape(K, 6, 6))
             b_c = jnp.zeros((K, 15), jnp.float32).at[:, :6].set(camk[:, 36:])
 
-            Hll = SUM[K:, 42:51].reshape(Pl, 3, 3)
-            b_l = SUM[K:, 51:54]
-            W_p = SUM[K:, 54:].reshape(Pl, K * 6, 3)
+            Hll = ptk[:, :9].reshape(Pl, 3, 3)
+            b_l = ptk[:, 9:12]
 
             # inertial + walk + priors touch only camera blocks; weight by
             # on0 so the psum does not double count
@@ -190,8 +171,7 @@ def sharded_schur_ba(problem: BAProblem, camera, R_cb, t_cb, mesh: Mesh,
                     jnp.maximum(jax.vmap(jnp.diagonal)(Hll), 1e-8))
             Hll_inv = inv3x3(Hll_d)
             Y_p = jnp.einsum("pkv,pvw->pkw", W_p, Hll_inv)  # [Pl, K*6, 3]
-            # f32 MXU precision: the default bf16 matmul loses enough bits
-            # to slow LM convergence measurably
+            # full f32 (not TF32): the reduced system feeds the Cholesky
             S6 = jax.lax.dot_general(
                 Y_p, W_p, (((0, 2), (0, 2)), ((), ())),
                 precision=jax.lax.Precision.HIGHEST)  # [K*6, K*6]
@@ -201,7 +181,7 @@ def sharded_schur_ba(problem: BAProblem, camera, R_cb, t_cb, mesh: Mesh,
                 -S6.reshape(K, 6, K, 6).transpose(0, 2, 1, 3))
             b_local = b_c.at[:, :6].add(-b6.reshape(K, 6))
 
-            # --- the distributed reduction: one psum over ICI ---
+            # --- the distributed reduction: one psum ---
             S = jax.lax.psum(S_local, axis)
             b = jax.lax.psum(b_local, axis)
             c_lin = jax.lax.psum(

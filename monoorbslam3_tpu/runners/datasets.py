@@ -1,6 +1,6 @@
 """Dataset loaders + sequence runner.
 
-TPU-native analog of the reference's demo binaries and loaders
+Analog of the reference's demo binaries and loaders
 (test/Data.h:14-49, test/eurocDemo.cpp, kittiDemo.cpp, phoneDemo.cpp,
 ntuDemo.cpp, rectDemo.cpp, demo.cpp): per-dataset folder layouts are
 parsed into a common (timestamp, image, imu-rows) stream and fed through
@@ -153,10 +153,10 @@ class VideoDataset:
 
 def run_sequence(system, dataset, realtime_fps: float | None = None,
                  max_frames: int | None = None, progress_every: int = 100,
-                 log=print):
+                 log=print, warmup: bool = False):
     """Drive a System over a dataset (the demo main loop,
     eurocDemo.cpp:44-74). Returns per-frame states."""
-    if realtime_fps:
+    if realtime_fps or warmup:
         # real-time pacing cannot absorb a cold XLA compile mid-stream —
         # trace every solver at its runtime shape before frame 0
         log("warmup: pre-compiling solver shapes...")
@@ -207,6 +207,9 @@ def main(argv=None):
     p.add_argument("--depth-out", default=None)
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--realtime", action="store_true")
+    p.add_argument("--warmup", action="store_true",
+                   help="compile every solver shape before the first frame "
+                        "(implied by --realtime)")
     p.add_argument("--vocab", default=None,
                    help="DBoW2 text vocabulary (the ORBvoc.txt positional "
                         "argument of the reference demos); enables "
@@ -224,6 +227,9 @@ def main(argv=None):
                         "streaming frames")
     args = p.parse_args(argv)
 
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     system = build_system(args.settings, vocab_path=args.vocab,
                           viewer_dir=args.viewer_dir)
     if args.load_state:
@@ -241,7 +247,8 @@ def main(argv=None):
     fps = None
     if args.realtime:
         fps = float(load_settings_fps(args.settings))
-    run_sequence(system, dataset, realtime_fps=fps, max_frames=args.max_frames)
+    run_sequence(system, dataset, realtime_fps=fps, max_frames=args.max_frames,
+                 warmup=args.warmup)
     system.shutdown()
     if args.save_state:
         system.save_state(args.save_state)

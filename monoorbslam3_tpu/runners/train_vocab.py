@@ -86,7 +86,9 @@ def main(argv=None):
     ap.add_argument("--levels", type=int, default=5)
     ap.add_argument("--group-level", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cpu", action="store_true", default=True)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the default "
+                         "accelerator")
     args = ap.parse_args(argv)
 
     if args.cpu:

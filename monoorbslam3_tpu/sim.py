@@ -321,8 +321,12 @@ class ImageWorld:
             self._ray_key = key
         return self._rays
 
-    def render(self, t, camera, R_bc, t_bc, noise=1.0, rng=None):
-        """Ray-cast the cylinder at time t -> [H, W] float32 image 0..255."""
+    def render(self, t, camera, R_bc, t_bc, noise=1.0, rng=None,
+               return_points=False):
+        """Ray-cast the cylinder at time t -> [H, W] float32 image 0..255.
+
+        With `return_points`, also returns the world point each pixel sees
+        ([H, W, 3] float64): ground truth for a map of the rendered view."""
         rng = rng or np.random.default_rng(int(t * 1e3) % (2**31))
         d_c = self._ray_grid(camera)
         R_cw, t_cw = self.pose_cw(t, R_bc, t_bc)
@@ -376,7 +380,10 @@ class ImageWorld:
                + (1 - au) * av * T[v1, u0] + au * av * T[v1, u1])
         if noise > 0:
             img = img + rng.normal(scale=noise, size=img.shape)
-        return np.clip(img, 0, 255).astype(np.float32)
+        img = np.clip(img, 0, 255).astype(np.float32)
+        if return_points:
+            return img, o_w[None, None] + s[..., None] * d_w
+        return img
 
 
 @dataclass

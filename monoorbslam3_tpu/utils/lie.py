@@ -1,6 +1,6 @@
 """SO(3) Lie-group toolbox, batched and jit-friendly.
 
-TPU-native analog of the reference's SO(3) helpers
+Analog of the reference's SO(3) helpers
 (reference: modules/Utils/LieAlgeBra.h:11-29): hat, ExpSO3, LogSO3,
 right Jacobian + inverse, rotation normalization. All functions operate on
 trailing axes and broadcast over arbitrary leading batch dimensions, use

@@ -1,6 +1,6 @@
 """SE(3) pose utilities over (R [..., 3, 3], t [..., 3]) array pairs.
 
-TPU-native analog of the reference `Pose` value type (modules/BasicObject/
+Analog of the reference `Pose` value type (modules/BasicObject/
 Pose.h:11-32): composition, inversion, point mapping, and quaternion I/O —
 expressed as pure functions over batched arrays rather than a pointer type,
 so whole keyframe sets transform in one fused op.

@@ -1,6 +1,6 @@
 """Live viewer thread — the reference Viewer, headless.
 
-TPU-native analog of the reference's Pangolin render thread
+Analog of the reference's Pangolin render thread
 (modules/View/Viewer.cpp:13-197): a daemon thread that wakes at the
 viewer fps, snapshots the latest tracked frame (FrameDrawer::Update,
 FrameDrawer.cpp:111-139) and the map, renders both with the offline

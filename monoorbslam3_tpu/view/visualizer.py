@@ -1,7 +1,7 @@
 """Offline visualization — the reference View layer, Pangolin-free.
 
 The reference renders live via a Pangolin GL thread (modules/View/
-Viewer.cpp, MapDrawer.cpp, FrameDrawer.cpp); for a headless TPU runtime
+Viewer.cpp, MapDrawer.cpp, FrameDrawer.cpp); for a headless runtime
 the equivalent is offline artifact rendering (SURVEY.md §7 stage 8):
 
 - `draw_frame`  <- FrameDrawer::DrawFrame (keypoint boxes + status text)

@@ -1,5 +1,10 @@
 """Config loader + dataset runner tests (synthetic on-disk fixtures)."""
 
+import glob
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -152,3 +157,64 @@ def test_kitti_loader_layout(tmp_path):
     assert (imu1[:, 0] > t0).all() and (imu1[:, 0] <= t1).all()
     # ~10 IMU rows per 0.1 s frame at 100 Hz
     assert 8 <= len(imu1) <= 12
+
+
+SETTINGS_FILES = sorted(
+    os.path.basename(p) for p in glob.glob(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "settings", "*.yaml")))
+
+
+@pytest.mark.parametrize("name", SETTINGS_FILES)
+def test_settings_loader_matches_pyyaml(name):
+    """The built-in settings parser reads every shipped profile; where
+    PyYAML is installed it must agree with it exactly."""
+    path = os.path.join("settings", name)
+    s = load_settings(path)
+    assert {"Camera", "ORB", "IMU"} <= set(s), name
+    build_camera(s)
+    build_imu_calib(s)
+    yaml = pytest.importorskip("yaml")
+    from monoorbslam3_tpu.config import _normalize_opencv_yaml
+
+    with open(path) as f:
+        assert s == yaml.safe_load(_normalize_opencv_yaml(f.read()))
+
+
+def test_settings_loader_euroc_values():
+    s = load_settings("settings/euroc.yaml")
+    assert s["Camera"]["Width"] == 752 and s["Camera"]["fps"] == 20
+    assert s["Camera"]["DistortionModel"] == "radtan"
+    assert s["Camera"]["Distortion"] == [-0.28340811, 0.07395907,
+                                         0.00019359, 1.76187114e-05]
+    assert s["ORB"] == {"Features": 1024, "ScaleFactor": 1.2, "Levels": 8,
+                        "IniThFAST": 20, "MinThFAST": 7}
+    assert s["IMU"]["NoiseGyro"] == 1.6968e-04
+    assert s["IMU"]["Frequency"] == 200
+    # a flow list continued over three lines
+    assert len(s["IMU"]["Rbc"]) == 9
+    assert s["IMU"]["Rbc"][3] == 0.999557249008
+    assert s["IMU"]["tbc"] == [-0.0216401454975, -0.064676986768,
+                               0.00981073058949]
+
+
+def test_settings_loader_needs_no_pyyaml():
+    """The main path (config -> build_system) imports without PyYAML."""
+    code = ("import sys; sys.modules['yaml'] = None\n"
+            "import monoorbslam3_tpu.config as c\n"
+            "s = c.load_settings('settings/synthetic.yaml')\n"
+            "assert s['System']['local_k'] == 40\n"
+            "assert 'yaml' not in [m for m, v in sys.modules.items() if v]\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_settings_loader_rejects_unsupported_yaml(tmp_path):
+    from monoorbslam3_tpu.config import parse_settings_yaml
+
+    for text in ("Camera:\n  - 1\n  - 2\n", "A: [1, [2]]\n", "A: {b: 1}\n",
+                 "A: [1, 2\n"):
+        with pytest.raises(ValueError):
+            parse_settings_yaml(text)

@@ -1,11 +1,12 @@
-"""Fused masked-match kernel (ops/match_pallas.py): exact equivalence with
-the mask-build + match_descriptors XLA path, incl. Pallas interpret mode."""
+"""Fused masked match (ops/fused_match.py): exact equivalence with the
+mask-build + match_descriptors path."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from monoorbslam3_tpu.ops import matching
-from monoorbslam3_tpu.ops.match_pallas import projected_match
+from monoorbslam3_tpu.ops.fused_match import projected_match
 
 RNG = np.random.default_rng(11)
 
@@ -44,7 +45,7 @@ def _reference(da, db, uv_a, xy_b, radius, va, vb, ga, gb, max_dist, ratio,
         ratio=ratio, mutual=mutual, use_ratio=use_ratio)
 
 
-def _check(backend, N=256, M=300, **kw):
+def _check(N=256, M=300, **kw):
     da, db, uv_a, xy_b, radius, va, vb, ga, gb = _mk(N, M, **kw)
     for max_dist, ratio, mutual in [(matching.TH_HIGH, 0.9, True),
                                     (matching.TH_LOW, 0.75, False)]:
@@ -53,23 +54,14 @@ def _check(backend, N=256, M=300, **kw):
         idx, dist = projected_match(
             da, db, uv_a=jnp.asarray(uv_a), xy_b=jnp.asarray(xy_b),
             radius=radius, groups_a=ga, groups_b=gb, valid_a=va, valid_b=vb,
-            max_dist=max_dist, ratio=ratio, mutual=mutual, backend=backend)
+            max_dist=max_dist, ratio=ratio, mutual=mutual)
         np.testing.assert_array_equal(np.asarray(idx), np.asarray(ref_idx))
         hit = np.asarray(idx) >= 0
         np.testing.assert_array_equal(np.asarray(dist)[hit],
                                       np.asarray(ref_dist)[hit])
 
 
-def test_fused_match_xla_matches_reference():
-    _check("xla")
-    _check("xla", with_groups=False)
-
-
-def test_fused_match_interpret_matches_reference():
-    _check("interpret", N=256, M=256)
-
-
-def test_fused_match_no_spatial_gate():
+def _check_no_spatial_gate():
     """radius=None (the SearchByBow mode: descriptor + node gate only)."""
     da, db, uv_a, xy_b, radius, va, vb, ga, gb = _mk(256, 256)
     mask = (jnp.asarray(va)[:, None] & jnp.asarray(vb)[None, :]
@@ -79,5 +71,13 @@ def test_fused_match_no_spatial_gate():
         ratio=0.75)
     idx, _ = projected_match(
         da, db, groups_a=ga, groups_b=gb, valid_a=va, valid_b=vb,
-        max_dist=matching.TH_LOW, ratio=0.75, backend="xla")
+        max_dist=matching.TH_LOW, ratio=0.75)
     np.testing.assert_array_equal(np.asarray(idx), np.asarray(ref_idx))
+
+
+@pytest.mark.parametrize("case", ["groups", "no_groups", "no_spatial_gate"])
+def test_fused_match_matches_reference(case):
+    if case == "no_spatial_gate":
+        _check_no_spatial_gate()
+    else:
+        _check(with_groups=case == "groups")

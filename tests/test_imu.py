@@ -127,7 +127,7 @@ def test_imu_buffer_merge_equivalence():
 
 
 def test_tree_preintegration_matches_sequential():
-    """preintegrate_tree (log-depth associative reduction, the TPU hot
+    """preintegrate_tree (log-depth associative reduction, the hot
     path) must reproduce the sequential scan exactly (to f32 rounding):
     deltas, 15x15 covariance, and all five bias Jacobians, including
     mask padding."""

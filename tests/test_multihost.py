@@ -104,6 +104,6 @@ def test_global_mesh_shape_layout():
         pytest.skip("needs >= 4 virtual devices")
     mesh = multihost.global_mesh(("dp", "mp"), shape=(2, 2))
     assert mesh.shape == {"dp": 2, "mp": 2}
-    # fastest-varying axis (mp) holds adjacent device ids (same-host ICI)
+    # fastest-varying axis (mp) holds adjacent device ids (same host)
     ids = [[d.id for d in row] for row in mesh.devices]
     assert ids[0][1] == ids[0][0] + 1
